@@ -6,7 +6,7 @@ Octosplits the reference's Rijke_mm.msh ``--nsplit`` times (×2 →
 and solves the passive modes with the matrix-free device Beyn.  The
 default backend is the block-tridiagonal SLAB direct solver
 (ops/slab_solve.py): all contour-node factorizations run as batched
-dense MXU sweeps — the device re-design of the reference's per-node
+dense sweeps — the device re-design of the reference's per-node
 UMFPACK loop (beyn.jl:62-74).  ``--method gmres`` selects the
 multigrid-preconditioned iterative path instead (then the coarse level
 hierarchy comes from the original 1006-DOF mesh via composed P1

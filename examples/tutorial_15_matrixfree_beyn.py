@@ -2,17 +2,17 @@
 two-grid preconditioner.
 
 The reference's global Beyn solver factorizes L(z) with UMFPACK at every
-contour node (/root/reference/src/NLEVP/beyn.jl:62-74).  The TPU-native
-path never materializes a factor: every node becomes a batch of GMRES
+contour node (/root/reference/src/NLEVP/beyn.jl:62-74).  The matrix-free
+device path never materializes a factor: every node becomes a batch of GMRES
 panel solves over the union-pattern value stack, preconditioned by one
 multiplicative two-grid cycle whose coarse level is a coarser octosplit
 ancestor of the same mesh — the coarse operator is the SAME symbolic
 family discretized coarse, inverted once per shift, applied as a single
 matmul.
 
-This scales the contour solver past the dense-node regime (it is how the
-SCALE.json artifact on the 216k-tet Rijke mesh is produced — see
-examples/scale_beyn.py) while reproducing host (LU) Beyn eigenvalues.
+This scales the contour solver past the dense-node regime (see
+examples/scale_beyn.py for the big-mesh driver) while reproducing host
+(LU) Beyn eigenvalues.
 
 Run:
   JAX_PLATFORMS=cpu PYTHONPATH=. python examples/tutorial_15_matrixfree_beyn.py

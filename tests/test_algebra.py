@@ -49,7 +49,7 @@ def test_exp_az():
 @pytest.mark.parametrize("m,n", [(0, 0), (1, 0), (0, 1), (2, 1), (1, 2),
                                  (3, 2), (4, 4)])
 def test_exp_delay_mixed_derivs(m, n):
-    import sympy as sp
+    sp = pytest.importorskip("sympy")
     w, tau = 2.0 + 0.5j, 0.7 - 0.1j
     ws, ts = sp.symbols("w t")
     expr = sp.exp(-sp.I * ws * ts)

@@ -1,4 +1,4 @@
-"""Device-resident shifted-solve backend (ops/device_solve.py): the TPU
+"""Device-resident shifted-solve backend (ops/device_solve.py): the device
 counterpart of the reference's ARPACK/UMFPACK hot path
 (Householder.jl:100-101, perturbation.jl:385) behind the
 ``WAE_SOLVE_BACKEND`` / ``set_solve_backend`` switch."""

@@ -1,12 +1,10 @@
-"""Device sparse layouts and kernels (CPU: XLA paths + Pallas interpret)."""
+"""Device sparse layouts and kernels (XLA paths on the CPU backend)."""
 import jax
 import numpy as np
 
 from wavesandeigenvalues_jl_tpu.ops.device import (BsrOperator,
                                                    DeviceStackedOperator,
-                                                   EllOperator)
-from wavesandeigenvalues_jl_tpu.ops.pallas_spmv import (PallasBsrSpmm,
-                                                        bsr_spmm_xla)
+                                                   EllOperator, bsr_spmm_xla)
 from wavesandeigenvalues_jl_tpu.ops.reorder import (bandwidth,
                                                     cuthill_mckee,
                                                     permute_csr)
@@ -59,20 +57,6 @@ def test_bsr_roundtrip_and_xla():
     Y = f(X)
     rel = np.abs(Y - A @ X).max() / np.abs(A @ X).max()
     assert rel < 1e-5  # complex64 path
-
-
-def test_pallas_bsr_interpret():
-    """The TPU kernel in interpreter mode matches the dense product."""
-    A = random_sparse(256, 8, seed=4)
-    Acsr = CSR.from_dense(A)
-    bsr = BsrOperator.from_csr(Acsr, bs=128)
-    p = PallasBsrSpmm(bsr, nrhs=128, interpret=True)
-    rng = np.random.default_rng(2)
-    X = (rng.standard_normal((256, 128))
-         + 1j * rng.standard_normal((256, 128))).astype(np.complex64)
-    Y = p(X)
-    rel = np.abs(Y - A @ X).max() / np.abs(A @ X).max()
-    assert rel < 1e-5
 
 
 def test_device_stacked_operator():

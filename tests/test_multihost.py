@@ -1,8 +1,7 @@
-"""Multi-host readiness (parallel/multihost.py, VERDICT r2 #8).
+"""Multi-process readiness (parallel/multihost.py).
 
-Real DCN cannot be exercised here (single host); these tests pin the
-single-host no-op contract and compile-check the (host × shift × row)
-pod layout on the virtual CPU mesh."""
+These tests pin the single-process no-op contract and compile-check the
+(host × shift × row) layout on the virtual CPU mesh."""
 import numpy as np
 import pytest
 

@@ -2,7 +2,7 @@
 
 Covers the scalable contour-quadrature path (ops/panel_solve.py,
 parallel/dist_beyn.matfree_moments) that replaces the round-1 dense
-[d,d] node solves — the TPU counterpart of the reference's UMFPACK loop
+[d,d] node solves — the device counterpart of the reference's UMFPACK loop
 at /root/reference/src/NLEVP/beyn.jl:62-74."""
 import numpy as np
 import pytest

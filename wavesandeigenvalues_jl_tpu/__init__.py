@@ -1,14 +1,15 @@
-"""wavesandeigenvalues_jl_tpu — a TPU-native sparse-FEM / nonlinear-
-eigenvalue framework with the capabilities of WavesAndEigenvalues.jl.
+"""wavesandeigenvalues_jl_tpu — a JAX sparse-FEM / nonlinear-eigenvalue
+framework with the capabilities of WavesAndEigenvalues.jl.
 
-Built from scratch on JAX/XLA/Pallas: tetrahedral P1/P2/Hermite FEM
+Built from scratch on JAX/XLA: tetrahedral P1/P2/Hermite FEM
 assembly of parameterized operator families K + ωC + ω²M + n·e^{-iωτ}Q
 for the thermoacoustic Helmholtz equation, a domain-agnostic NLEVP stack
 (Householder/MSLP iterations, Beyn contour integration, arbitrary-order
 adjoint perturbation + Padé, FTF fitting), APE and 1-D network models,
 Bloch-symmetry reduction, shape sensitivities, and mesh/VTK tooling —
-with sharded operators, Pallas SpMM kernels, device GMRES and
-contour-shift batching on TPU meshes, plus native C++ host kernels.
+with sharded operators, device SpMM, GMRES and block-Thomas solves and
+contour-shift batching on GPU device meshes, plus native C++ host
+kernels.
 
 Subpackages: ``mesh``, ``fem``, ``models``, ``nlevp``, ``ops``,
 ``parallel``, ``native``, ``utils`` — see docs/index.md.

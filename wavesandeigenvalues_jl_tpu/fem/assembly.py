@@ -5,7 +5,7 @@ Replaces the reference's per-element COO append loops
 (aggregate_elements, FEM.jl:84-166), batched element-kernel evaluation
 ([ne,k,k] tensors from :mod:`.elements`), and a single duplicate-summing
 scatter into CSR.  This is exactly the gather → vmapped-kernel →
-segment-sum structure that maps onto TPU assembly."""
+segment-sum structure that maps onto device assembly."""
 from __future__ import annotations
 
 from typing import Tuple

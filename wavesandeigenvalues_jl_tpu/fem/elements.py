@@ -3,7 +3,7 @@
 The reference ships ~2600 lines of hand-expanded closed-form local matrices
 (/root/reference/src/FEM/FEM.jl).  Here every kernel is a single einsum over
 precomputed reference-element quadrature tables, batched across the whole
-element set at once — the natural shape for XLA/TPU (one [ne, k, k] tensor
+element set at once — the natural shape for XLA (one [ne, k, k] tensor
 per operator instead of ne small-matrix calls).  The quadrature (collapsed
 Duffy/Gauss tensor rule, exact to degree 2n-3 on the tet / 2n-2 on the tri
 for n points per axis) is chosen per kernel to cover the integrand degree
@@ -155,7 +155,7 @@ def tri_trafo(points: np.ndarray, tris: np.ndarray):
 #
 # Every kernel is written as   per-element geometry ⊗ precomputed exact
 # integration tensor  →  one [ne, ·] × [·, k·k] BLAS matmul — the layout that
-# is (a) memory-minimal on host and (b) an MXU matmul when traced on TPU.
+# is (a) memory-minimal on host and (b) one dense matmul when traced on device.
 # The integration tensors contract the quadrature axis once at table-build
 # time; P1 coefficient fields enter *exactly* through their vertex values
 # (weight Σ c_k λ_k, squared for the cc1 stiffness), not via sampling.

@@ -1,6 +1,6 @@
 """Linearized acoustic perturbation equations (APE) about a mean flow.
 
-TPU-first re-design of the reference's APE module
+Batched re-design of the reference's APE module
 (/root/reference/src/APE.jl:10-321): a mixed P2-velocity / P1-pressure
 discretization of the APE system with eigenvalue symbol ``s``,
 
@@ -17,7 +17,7 @@ the three P2 velocity components.  Terms:
 
 All element evaluations are batched over the whole tetrahedron set
 (gather → einsum kernels → duplicate-summing scatter), not per-element
-loops — the shape XLA tiles onto the MXU.
+loops — the shape XLA turns into dense batched products.
 
 ``compute_potflow_field`` solves the potential-flow Poisson problem with
 volume-flow boundary conditions (APE.jl:215-321): order "const" uses P1

@@ -11,7 +11,7 @@ Each element contributes a small dense stamp enforcing continuity of p and
 A·u (plus its own jump physics) between its two unknowns (F, G) and the
 neighbours'.  ``discretize_network`` stamps the element blocks into a dense
 2N×2N operator family over ω — small dense NLEVPs that ride the generic
-solver stack unchanged (the whole family fits in one MXU tile).
+solver stack unchanged (the whole family is a few dense tiles).
 
 Element library (network.jl:26-281): duct, terminal (unode R=+1 /
 pnode R=-1 / anechoic R=0), n-τ flame jump, sidewall Helmholtz damper with

@@ -1,6 +1,6 @@
 """Native (C++) host-runtime kernels with lazy compilation.
 
-The compute path of this framework is JAX/XLA/Pallas on TPU; the host
+The compute path of this framework is JAX/XLA on the GPU; the host
 runtime around it (mesh indexing, assembly reduction, reordering, host
 operator application) offloads its hot loops to ``host_kernels.cpp``,
 compiled here on first use with the system toolchain and loaded via

@@ -1,4 +1,4 @@
-// Native host-runtime kernels for the TPU framework.
+// Native host-runtime kernels for the waves/eigenvalues framework.
 //
 // The reference (JulHoltzDevelopers/WavesAndEigenvalues.jl) gets its host
 // performance from Julia's JIT plus ARPACK/UMFPACK binaries; here the

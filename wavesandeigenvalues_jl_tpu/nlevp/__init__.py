@@ -1,6 +1,6 @@
 """Domain-agnostic nonlinear-eigenvalue (NLEVP) engine.
 
-TPU-native counterpart of the reference's NLEVP module
+JAX counterpart of the reference's NLEVP module
 (/root/reference/src/NLEVP/): operator families, coefficient-function
 algebra, local and global eigensolvers, arbitrary-order perturbation theory
 with Padé summation, persistence, and a gallery of benchmark problems."""

@@ -5,7 +5,7 @@ one or more (complex) parameters together with *all* its mixed partial
 derivatives in closed form: ``f.eval(values, orders)`` returns
 ``∂^{orders}/∂z^{orders} f`` evaluated at ``values``.  Derivative orders are
 static Python ints (known at trace time) so every function is jit-traceable
-in its value arguments — the TPU batching axes (contour quadrature nodes,
+in its value arguments — the device batching axes (contour quadrature nodes,
 parameter sweeps) trace straight through.
 
 This reproduces the semantics of the reference's coefficient algebra

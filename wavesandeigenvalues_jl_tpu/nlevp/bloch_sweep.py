@@ -11,7 +11,7 @@ iteration (SURVEY §2.9 axis 5):
 * per Newton step, the host evaluates the K coefficient values for every
   (z_b, b) pair exactly in complex128 — B·K scalars;
 * the device assembles all B operators from the shared value stack,
-  LU-factorizes them as one batched MXU program, and runs one batched
+  LU-factorizes them as one batched program, and runs one batched
   inverse-iteration + two-sided Rayleigh-quotient step — a single
   dispatch for the entire wavenumber family;
 * per-b Newton updates and convergence bookkeeping stay on host;
@@ -198,8 +198,8 @@ def bloch_mode_sweep(L: OperatorFamily, z0, b_values: Sequence[float],
             _, Ws = _esi(A0, M0, nev=1, m=12, factor=F0, adjoint=True)
             v0[i] = Vs[:, 0]
             w0[i] = Ws[:, 0]
-    except Exception:
-        pass                        # ones-start fallback
+    except np.linalg.LinAlgError:
+        pass                        # singular start: ones-start fallback
     vr = dev(v0.real.astype(np.float32))
     vi = dev(v0.imag.astype(np.float32))
     wr = dev(w0.real.astype(np.float32))
@@ -298,8 +298,8 @@ def bloch_mode_sweep(L: OperatorFamily, z0, b_values: Sequence[float],
                         if nan_dz[i]:       # rescued by the host polish
                             flag = ITSOL_CONVERGED
                         break
-            except Exception:
-                pass
+            except np.linalg.LinAlgError:
+                pass                # singular shift: keep the device result
         params = dict(L.params)
         params[eig] = z
         params[aux] = complex(lam[i])

@@ -73,7 +73,7 @@ def track_branch(L: OperatorFamily, param: str, values: Sequence[complex],
             try:
                 perturb_fast(sol, L, param, order)
                 jet = np.asarray(sol.eigval_pert[f"{param}/Taylor"])
-            except Exception:
+            except np.linalg.LinAlgError:
                 jet = None  # keep sweeping with zeroth-order continuation
         prev_val = val
     return sols, flags

@@ -4,7 +4,7 @@ Replaces the reference's ARPACK dependency (``Arpack.eigs(A, M, sigma=0)``
 inside every local NLEVP solver, e.g. Householder.jl:100-101).  The
 implementation is a restarted Arnoldi iteration on OP = (A - σM)^{-1} M with
 full modified Gram-Schmidt; the m×m Hessenberg eigen-tail runs on host
-(complex `eig` has no TPU lowering).  Left eigenvectors come from the same
+(a small dense complex `eig`).  Left eigenvectors come from the same
 factorization via conj-transpose solves — no second factorization, unlike
 the reference which factorizes both A and A'.
 """

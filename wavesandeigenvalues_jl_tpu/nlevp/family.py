@@ -1,6 +1,6 @@
 """Parameterized operator families  L(p) = Σ_k f_k(p)·A_k.
 
-TPU-first re-design of the reference's ``Term`` / ``LinearOperatorFamily`` /
+Batched re-design of the reference's ``Term`` / ``LinearOperatorFamily`` /
 ``Solution`` types (/root/reference/src/NLEVP/LinOpFam.jl:16-138).  The
 user-facing semantics match the reference:
 

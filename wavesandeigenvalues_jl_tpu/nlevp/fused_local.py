@@ -2,400 +2,58 @@
 
 The reference's local solvers run ARPACK shift-invert Arnoldi over UMFPACK
 factorizations at every outer iteration (Householder.jl:70-192,
-iterative_solvers.jl:93-252).  The round-3 device path translated that
-host-driven loop 1:1 — O(10-50) device dispatches per Newton step — and
-lost 59× to dispatch latency (VERDICT r3 #2).  This module is the
-TPU-native redesign:
+iterative_solvers.jl:93-252).  A 1:1 translation of that host-driven loop
+makes O(10-50) device dispatches per Newton step.  This engine fuses the
+step instead (the step itself is :class:`.fused_slab.FusedSlabPencilSolver`):
 
 * **Host does scalars, device does vectors.**  Per Newton step the host
   evaluates the family's coefficient vectors c(z), ∂_z c(z) exactly in
-  complex128 (K ≈ 10 numbers — the only thing complex128 on TPU would be
-  needed for) and enqueues ONE fused program.
-* The fused program assembles the union-pattern operator into dense
-  float32 planes, pre-multiplies the block-Jacobi preconditioner (one
-  batched MXU matmul), and runs the inner inverse iterations through the
-  :mod:`..ops.pallas_gmres` kernel — a COMPLETE GMRES(m) solve per op
-  (~2-4 ms), where the XLA-level loop cost ~1 ms per Arnoldi step in
-  runtime overheads.
-* The auxiliary eigenvalue λ and its z-derivative are two-sided Rayleigh
-  quotients in float64-PAIR arithmetic (TPU complex128 does not compile;
-  f64 is emulated), with float64 residual-refined solves feeding them.
+  complex128 (K ≈ 10 numbers) and enqueues ONE fused program: assembly,
+  one block-Thomas factorization, σ-regularized inverse iteration with
+  f64-refined block-Thomas re-solves, and the two-sided Rayleigh
+  quotients λ, λ′ in float64 (re, im) pairs.
 * **σ-regularization**: the inner solves use (A+σM), whose pencil
   spectrum is λ_j+σ, so κ stays bounded even at the Newton fixed point
-  where A itself is singular — the f32 attainable residual there is
-  ε·κ → ∞, which breaks any unregularized iterative inner solver.  The
-  Rayleigh quotients use the PURE A, so λ and dz are σ-independent.
+  where A itself is singular.  The Rayleigh quotients use the PURE A, so
+  λ and dz are σ-independent.
 * Eigenvector carries stay device-resident between steps (f32 planes).
 
 Accuracy model: the two-sided Rayleigh quotient is quadratically accurate
-in the vector errors (ε_v·ε_w ≈ 1e-12 at f32-converged vectors), and the
-f64-pair refinement sweeps push the vectors beyond f32, so the final dz
-is exact to ~1e-12·|z| — the mslp iterate converges to the same digits as
-the reference's complex128 path (BASELINE.md active Rijke ω) instead of
-flooring at f32 (round-3: 1.16e-7 rad/s).
+in the vector errors, so the device loop lands inside the Newton basin;
+one to three complex128 host polish steps supply the last digits
+(BASELINE.md active Rijke ω).
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 
-from ..ops.gmres import BatchedBlockDiagInv
-from ..ops.pallas_gmres import build_dense_gmres
 from ..utils.config import CDTYPE
-from .family import AUX_OPERATOR, OperatorFamily, Solution
-
-#: inner-solve controls (fixed shapes — part of the compiled program)
-GMRES_M = 80   # GMRES(40) stagnates on the penalty-BC Helmholtz operators
-GMRES_CYCLES = 1
-REFINE_SWEEPS = 1
-BJ_BS = 128           # = pallas LANE (the padded-N block granularity)
-#: largest family dimension routed to the fused dense path (the [N,N]
-#: planes and their in-kernel copy must fit VMEM)
-FUSED_MAX_DIM = 1400
-
-
-def _planes64(x):
-    x = np.asarray(x, np.complex128)
-    return (np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag))
-
-
-def _planes32(x):
-    x = np.asarray(x)
-    return (np.ascontiguousarray(x.real).astype(np.float32),
-            np.ascontiguousarray(x.imag).astype(np.float32))
-
-
-import functools
-
-
-@functools.lru_cache(maxsize=32)
-def _build_step_fn(meta, solve_pallas):
-    """meta = (n, K, nnz, N).  Returns the jitted per-Newton-step fn.
-
-    lru-cached (with the lru-cached pallas solve as part of the key) so
-    repeated solver constructions on same-shaped families reuse the
-    compiled programs instead of re-tracing."""
-    import jax
-    import jax.numpy as jnp
-
-    n, K, nnz, N = meta
-    nbp = N // BJ_BS
-    f32 = jnp.float32
-
-    @jax.jit
-    def step(rows2, cols2, vals_r, vals_i, cr, ci, dcr, dci, sr, si,
-             mdat_r, mdat_i, djr, dji, vr, vi, wr, wi):
-        # ---- device-side assembly (f64 pairs) ---------------------------
-        def contract(cr_, ci_, Vr, Vi):
-            return cr_ @ Vr - ci_ @ Vi, cr_ @ Vi + ci_ @ Vr
-
-        a_r, a_i = contract(cr, ci, vals_r[0], vals_i[0])        # A data
-        # Aᴴ stack is host-conjugated+permuted → conjugate coefficients
-        ah_r, ah_i = contract(cr, -ci, vals_r[1], vals_i[1])
-        # σ-regularized solve data G = A+σM (and Gᴴ = Aᴴ+σ̄Mᴴ)
-        g_r = a_r + sr * mdat_r[0] - si * mdat_i[0]
-        g_i = a_i + sr * mdat_i[0] + si * mdat_r[0]
-        gh_r = ah_r + sr * mdat_r[1] + si * mdat_i[1]
-        gh_i = ah_i + sr * mdat_i[1] - si * mdat_r[1]
-
-        def dense32(side, dr, di):
-            z = jnp.zeros((N, N), f32)
-            Gr = z.at[rows2[side], cols2[side]].set(dr.astype(f32))
-            Gi = z.at[rows2[side], cols2[side]].set(di.astype(f32))
-            return Gr, Gi
-
-        G0 = dense32(0, g_r, g_i)
-        G1 = dense32(1, gh_r, gh_i)
-
-        # ---- pre-preconditioned operators P = D⁻¹G (batched MXU) --------
-        def premul(side, G):
-            Gr, Gi = G
-            Dr = djr[side]
-            Di = dji[side]
-            e = lambda D, M: jnp.einsum(
-                "bij,bjk->bik", D, M.reshape(nbp, BJ_BS, N),
-                precision=jax.lax.Precision.HIGHEST).reshape(N, N)
-            Pr = e(Dr, Gr) - e(Di, Gi)
-            Pi = e(Dr, Gi) + e(Di, Gr)
-            return Pr, Pi
-
-        P0 = premul(0, G0)
-        P1 = premul(1, G1)
-
-        def dinv_vec(side, ur, ui):
-            Dr = djr[side]
-            Di = dji[side]
-            e = lambda D, u: jnp.einsum(
-                "bij,bj->bi", D, u.reshape(nbp, BJ_BS),
-                precision=jax.lax.Precision.HIGHEST).reshape(N)
-            return e(Dr, ur) - e(Di, ui), e(Dr, ui) + e(Di, ur)
-
-        pad = lambda x: jnp.zeros(N, x.dtype).at[:n].set(x)
-        Pr2 = jnp.stack([P0[0], P1[0]])
-        Pi2 = jnp.stack([P0[1], P1[1]])
-
-        def solve_both(b0r_n, b0i_n, b1r_n, b1i_n):
-            """Both sides' f32 [n] rhs -> f32 [n] solutions, ONE kernel
-            launch (each pallas invocation costs ~5 ms on this runtime)."""
-            c0r, c0i = dinv_vec(0, pad(b0r_n), pad(b0i_n))
-            c1r, c1i = dinv_vec(1, pad(b1r_n), pad(b1i_n))
-            xr, xi = solve_pallas(Pr2, Pi2, jnp.stack([c0r, c1r]),
-                                  jnp.stack([c0i, c1i]))
-            return ((xr[0, :n], xi[0, :n]), (xr[1, :n], xi[1, :n]))
-
-        # ---- f64-pair helpers ------------------------------------------
-        def pair_spmv(side, dr, di, xr, xi):
-            z = jnp.zeros(n, xr.dtype)
-            r_, c_ = rows2[side], cols2[side]
-            xr_g, xi_g = xr[c_], xi[c_]
-            yr = z.at[r_].add(dr * xr_g - di * xi_g)
-            yi = z.at[r_].add(dr * xi_g + di * xr_g)
-            return yr, yi
-
-        def pair_dot(wr_, wi_, yr, yi):              # wᴴ y
-            return (jnp.sum(wr_ * yr + wi_ * yi),
-                    jnp.sum(wr_ * yi - wi_ * yr))
-
-        def pair_div(ar_, ai_, br_, bi_):
-            d = br_ * br_ + bi_ * bi_
-            return ((ar_ * br_ + ai_ * bi_) / d,
-                    (ai_ * br_ - ar_ * bi_) / d)
-
-        mdat32_r = mdat_r.astype(f32)
-        mdat32_i = mdat_i.astype(f32)
-
-        def mspmv32(side, xr, xi):
-            return pair_spmv(side, mdat32_r[side], mdat32_i[side], xr, xi)
-
-        g64 = (jnp.stack([g_r, gh_r]), jnp.stack([g_i, gh_i]))
-
-        def refined_inverse_step(v_r, v_i, w_r, w_i, sweeps,
-                                 diagnostics=False):
-            """One inverse-iteration step both sides, f64-refined.
-            Inputs/outputs f32 [n] planes (x as f64 pairs).  The f64
-            emulated scatter-SpMVs are the expensive piece (~2-3 ms
-            each) — residual diagnostics run at f32 and only when
-            requested."""
-            b0r, b0i = mspmv32(0, v_r, v_i)
-            b1r, b1i = mspmv32(1, w_r, w_i)
-            (x0r, x0i), (x1r, x1i) = solve_both(b0r, b0i, b1r, b1i)
-            X = [[x0r.astype(jnp.float64), x0i.astype(jnp.float64)],
-                 [x1r.astype(jnp.float64), x1i.astype(jnp.float64)]]
-            B = [[b0r.astype(jnp.float64), b0i.astype(jnp.float64)],
-                 [b1r.astype(jnp.float64), b1i.astype(jnp.float64)]]
-            for _ in range(sweeps):
-                RR = []
-                for s_ in (0, 1):
-                    yr, yi = pair_spmv(s_, g64[0][s_], g64[1][s_],
-                                       X[s_][0], X[s_][1])
-                    RR.append(((B[s_][0] - yr).astype(f32),
-                               (B[s_][1] - yi).astype(f32)))
-                (d0r, d0i), (d1r, d1i) = solve_both(RR[0][0], RR[0][1],
-                                                    RR[1][0], RR[1][1])
-                X[0][0] = X[0][0] + d0r.astype(jnp.float64)
-                X[0][1] = X[0][1] + d0i.astype(jnp.float64)
-                X[1][0] = X[1][0] + d1r.astype(jnp.float64)
-                X[1][1] = X[1][1] + d1i.astype(jnp.float64)
-            if not diagnostics:
-                return X, None
-            # f64: the penalty-row magnitudes (~1e18) overflow when
-            # squared at f32, poisoning the stale-preconditioner check
-            res = []
-            for s_ in (0, 1):
-                yr, yi = pair_spmv(s_, g64[0][s_], g64[1][s_],
-                                   X[s_][0], X[s_][1])
-                num = jnp.sum((B[s_][0] - yr) ** 2 + (B[s_][1] - yi) ** 2)
-                den = jnp.maximum(
-                    jnp.sum(B[s_][0] ** 2 + B[s_][1] ** 2), 1e-300)
-                res.append(jnp.sqrt(num / den))
-            return X, jnp.stack(res)
-
-        def pnorm(xr_, xi_):
-            return jnp.sqrt(jnp.sum(xr_ * xr_ + xi_ * xi_))
-
-        # two inverse-iteration steps: a plain amplification step, then a
-        # refined one feeding the Rayleigh quotients
-        X, _ = refined_inverse_step(vr, vi, wr, wi, sweeps=0)
-        nv0 = jnp.maximum(pnorm(X[0][0], X[0][1]), 1e-300)
-        nw0 = jnp.maximum(pnorm(X[1][0], X[1][1]), 1e-300)
-        v1r = (X[0][0] / nv0).astype(f32)
-        v1i = (X[0][1] / nv0).astype(f32)
-        w1r = (X[1][0] / nw0).astype(f32)
-        w1i = (X[1][1] / nw0).astype(f32)
-        X, res2 = refined_inverse_step(v1r, v1i, w1r, w1i,
-                                       sweeps=REFINE_SWEEPS,
-                                       diagnostics=True)
-        nv = jnp.maximum(pnorm(X[0][0], X[0][1]), 1e-300)
-        nw = jnp.maximum(pnorm(X[1][0], X[1][1]), 1e-300)
-        vr64, vi64 = X[0][0] / nv, X[0][1] / nv
-        wr64, wi64 = X[1][0] / nw, X[1][1] / nw
-
-        # ---- two-sided Rayleigh quotients in f64 pairs ------------------
-        av_r, av_i = pair_spmv(0, a_r, a_i, vr64, vi64)
-        ap_r, ap_i = contract(dcr, dci, vals_r[0], vals_i[0])
-        apv_r, apv_i = pair_spmv(0, ap_r, ap_i, vr64, vi64)
-        mv_r, mv_i = pair_spmv(0, mdat_r[0], mdat_i[0], vr64, vi64)
-
-        num_r, num_i = pair_dot(wr64, wi64, av_r, av_i)      # wᴴ A v
-        dnum_r, dnum_i = pair_dot(wr64, wi64, apv_r, apv_i)  # wᴴ A′ v
-        den_r, den_i = pair_dot(wr64, wi64, mv_r, mv_i)      # wᴴ M v
-
-        lam_r, lam_i = pair_div(num_r, num_i, den_r, den_i)
-        lamd_r, lamd_i = pair_div(dnum_r, dnum_i, den_r, den_i)
-        # Newton/[1/0]-Padé update: dz = -λ / λ′
-        dz_r, dz_i = pair_div(-lam_r, -lam_i, lamd_r, lamd_i)
-
-        # ONE packed scalar output (each separate host fetch costs an RTT)
-        scal = jnp.stack([dz_r, dz_i, lam_r, lam_i, lamd_r, lamd_i,
-                          res2[0], res2[1]])
-        return (scal, vr64.astype(f32), vi64.astype(f32),
-                wr64.astype(f32), wi64.astype(f32))
-
-    return step
-
-
-class FusedPencilSolver:
-    """Device-resident state for the fused Newton iteration on one family."""
-
-    def __init__(self, L: OperatorFamily):
-        import jax
-
-        L.ensure_aux()
-        S = L._stack()
-        self.L = L
-        self.n = S.shape[0]
-        if self.n > FUSED_MAX_DIM:
-            raise ValueError(
-                f"dimension {self.n} above FUSED_MAX_DIM={FUSED_MAX_DIM}")
-        self.N = ((self.n + 127) // 128) * 128
-        self.eig, self.aux = L.eigval, L.auxval
-        rows = np.asarray(S.row_ids(), np.int64)
-        cols = np.asarray(S.indices, np.int64)
-        nnz = len(cols)
-        vals = np.asarray(S.values)                        # [K, nnz] c128
-        self.K = vals.shape[0]
-        # term index of __aux__ (M = -coeff_aux on the union pattern)
-        self.k_aux = next(i for i, t in enumerate(L.terms)
-                          if t.operator == AUX_OPERATOR)
-
-        # adjoint permutation: Aᴴ scatter = conj(data)[perm] on (cols,rows)
-        perm = np.lexsort((rows, cols))
-        rows_h = cols[perm]
-        cols_h = rows[perm]
-        valsH = np.conj(vals[:, perm])
-
-        self.rows2 = jax.device_put(np.stack([rows, rows_h]).astype(np.int32))
-        self.cols2 = jax.device_put(np.stack([cols, cols_h]).astype(np.int32))
-        self.vals_r = jax.device_put(np.stack([vals.real, valsH.real]))
-        self.vals_i = jax.device_put(np.stack([vals.imag, valsH.imag]))
-
-        # pencil weight M = -coeff_aux: data on the union pattern
-        e = np.zeros(self.K, np.complex128)
-        e[self.k_aux] = -1.0
-        mdat = e @ vals
-        mdatH = np.conj(mdat[perm])
-        mr, mi = _planes64(np.stack([mdat, mdatH]))
-        self.mdat_r = jax.device_put(mr)
-        self.mdat_i = jax.device_put(mi)
-        self._m_data = mdat
-
-        # block-Jacobi structure at the PADDED size (pad blocks → identity)
-        self.bj = BatchedBlockDiagInv(rows, cols, self.N, BJ_BS)
-        self.bjH = BatchedBlockDiagInv(rows_h, cols_h, self.N, BJ_BS)
-        self._perm = perm
-        self._vals_host = vals
-        self.meta = (self.n, self.K, nnz, self.N)
-        from ..utils.config import on_tpu
-        # CPU backends only run pallas in interpret mode (slow but exact
-        # same code path — what the CPU test suite exercises)
-        self._solve_pallas = build_dense_gmres(self.N, GMRES_M,
-                                               cycles=GMRES_CYCLES, sides=2,
-                                               interpret=not on_tpu())
-        self._step_fn = _build_step_fn(self.meta, self._solve_pallas)
-        self._dj = None
-
-    # -- host-side per-step scalar work -----------------------------------
-    def coefficients(self, z: complex):
-        L = self.L
-        L.params[self.eig] = z
-        L.params[self.aux] = 0.0
-        saved_mode = L.mode
-        L.mode = "householder"
-        try:
-            c = L.coefficients({})
-            dc = L.coefficients({self.eig: 1})
-        finally:
-            L.mode = saved_mode
-        c[self.k_aux] = 0.0
-        dc[self.k_aux] = 0.0
-        return c, dc
-
-    def refresh_bj(self, c: np.ndarray, sigma: complex):
-        import jax
-        data = c @ self._vals_host + sigma * self._m_data
-        dj = self.bj.inv(data[None])[0]
-        djH = self.bjH.inv(np.conj(data[self._perm])[None])[0]
-        djr, dji = _planes32(np.stack([dj, djH]))
-        self._dj = (jax.device_put(djr), jax.device_put(dji))
-
-    def step(self, z: complex, carries, sigma: complex, refresh: bool):
-        c, dc = self.coefficients(z)
-        if refresh or self._dj is None:
-            self.refresh_bj(c, sigma)
-        cr, ci = _planes64(c)
-        dcr, dci = _planes64(dc)
-        sr = np.float64(sigma.real)
-        si = np.float64(sigma.imag)
-        vr, vi, wr, wi = carries
-        out = self._step_fn(self.rows2, self.cols2, self.vals_r,
-                            self.vals_i, cr, ci, dcr, dci, sr, si,
-                            self.mdat_r, self.mdat_i,
-                            self._dj[0], self._dj[1], vr, vi, wr, wi)
-        scal, vr, vi, wr, wi = out
-        sc = np.asarray(scal, np.float64)          # one fetch
-        dz = complex(sc[0], sc[1])
-        lam = complex(sc[2], sc[3])
-        res = sc[6:8]
-        return dz, lam, (vr, vi, wr, wi), res
-
-    def fetch_vectors(self, carries):
-        vr, vi, wr, wi = carries
-        v = (np.asarray(vr, np.float64) + 1j * np.asarray(vi, np.float64))
-        w = (np.asarray(wr, np.float64) + 1j * np.asarray(wi, np.float64))
-        return v.astype(CDTYPE), w.astype(CDTYPE)
+from .family import OperatorFamily, Solution
+from .fused_slab import FusedSlabPencilSolver, _planes32
 
 
 def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
                     v0, v0_adj, output, scale):
-    """Fused-device drop-in for the mslp/householder order-1 engine.
+    """Fused-device engine for the mslp/householder order-1 iteration.
 
-    Returns (Solution, n_iters, flag) or None when inapplicable/failed —
-    the caller falls back to the generic host-driven engine.  Semantics
-    mirror ``solvers._local_engine`` for nev=1, order=1 (Newton update
+    Returns (Solution, n_iters, flag).  Semantics mirror
+    ``solvers._local_engine`` for nev=1, order=1 (Newton update
     dz = −λ/λ′, which is both the householder order-1 update and the
-    [1/0]-Padé root)."""
+    [1/0]-Padé root).  Errors on the device path propagate; a non-finite
+    device update ends the device loop and, unless the host polish
+    recovers a converged iterate, is reported as ``ITSOL_ISNAN``."""
     import jax
 
     from .solvers import (ITSOL_CONVERGED, ITSOL_IMPOSSIBLE, ITSOL_ISNAN,
                           ITSOL_MAXITER, ITSOL_SLOW_CONVERGENCE)
 
-    try:
-        stack = L._stack()
-        cached = getattr(L, "_fused_solver", None)
-        if cached is not None and cached[0] is stack:
-            solver = cached[1]
-        else:
-            if stack.shape[0] <= FUSED_MAX_DIM:
-                solver = FusedPencilSolver(L)
-            else:
-                # slab-direct variant for the dimensions past the dense
-                # VMEM planes (VERDICT r4 #5b) — same step interface
-                from .fused_slab import FusedSlabPencilSolver
-                solver = FusedSlabPencilSolver(L)
-            L._fused_solver = (L._stack(), solver)
-    except Exception:
-        return None
+    stack = L._stack()
+    cached = getattr(L, "_fused_solver", None)
+    if cached is not None and cached[0] is stack:
+        solver = cached[1]
+    else:
+        solver = FusedSlabPencilSolver(L)
+        L._fused_solver = (stack, solver)
 
     z = complex(z) * scale
     tol_s = tol * abs(scale) if scale != 1 else tol
@@ -417,8 +75,8 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
     n_it = 0
     flag = ITSOL_CONVERGED
     best_dz, n_stall = np.inf, 0
-    #: device-backend attainable |dz| floor (ADVICE r3 #2: tied to the
-    #: requested tol, not a fixed 1e-6)
+    nan_dz = False
+    #: device-backend attainable |dz| floor, tied to the requested tol
     floor = lambda zz: max(tol_s, 1e-12 * max(abs(zz), 1.0))
     if output:
         print("Launching fused-device mslp solver...")
@@ -434,19 +92,16 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
         while abs(z - z0) > dev_tol and n_it < maxiter:
             if output:
                 print(f"{n_it}\t{abs(lam):.3e}\t{abs(z - z0):.3e}\t{z / scale}")
-            refresh = (n_it == 0)
-            dz, lam, carries, res = solver.step(z, carries, sigma, refresh)
+            dz, lam, carries, _res = solver.step(z, carries, sigma)
             if not np.isfinite(dz):
-                return None                      # fall back to host engine
+                nan_dz = True
+                break
             if n_it == 0:
                 # gap-scale regularization: λ(z₀) is O(|z₀−z*|·λ′), a
                 # proxy for the pencil's eigenvalue spacing.  σ keeps
                 # (A+σM) nonsingular at the Newton fixed point; λ itself
                 # is σ-independent (see module docstring).
                 sigma = 0.1 * abs(lam)
-                solver.refresh_bj(solver.coefficients(z)[0], sigma)
-            elif res.max() > 1e-3:               # preconditioner went stale
-                solver.refresh_bj(solver.coefficients(z)[0], sigma)
             z0 = z
             z = z + relax * dz
             n_it += 1
@@ -461,9 +116,8 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
                               "stopping.")
                     z0 = z
                     break
-    except Exception:
+    finally:
         L.active, L.mode = saved_active, saved_mode
-        return None
 
     v, v_adj = solver.fetch_vectors(carries)
 
@@ -474,6 +128,7 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
     # warm-started host Newton steps (sparse LU + shift-invert — exactly
     # the reference's per-iteration machinery) at ~1/7 of the full host
     # solve cost each.
+    polished = False
     try:
         from ..ops.linsolve import factorize
         from .eigs import eigs_shift_invert
@@ -504,20 +159,23 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
             lam = lam_p
             n_it += 1
             if abs(dz) <= tol_s:
+                polished = True
                 break
-    except Exception:
-        pass                                      # keep the device result
+    except np.linalg.LinAlgError:
+        pass                       # singular shift: keep the device result
 
     L.params[eig] = z
     L.params[aux] = lam
-    if n_it >= maxiter:
+    if nan_dz and not polished:
+        flag = ITSOL_ISNAN
+    elif n_it >= maxiter:
         flag = ITSOL_MAXITER
     elif abs(lam) <= lam_tol:
         flag = ITSOL_CONVERGED
     elif abs(z - z0) <= tol_s:
         flag = ITSOL_SLOW_CONVERGENCE
     elif np.isnan(z):
-        flag = ITSOL_ISNAN                       # ADVICE r4: no fall-through
+        flag = ITSOL_ISNAN
     else:
         # device loop exited at dev_tol but the host polish never reached
         # the requested tol — mirror _local_engine's tail instead of
@@ -540,4 +198,4 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
     return Solution(L.params, v, v_adj, eig), n_it, flag
 
 
-__all__ = ["FusedPencilSolver", "try_fused_local"]
+__all__ = ["try_fused_local"]

@@ -9,7 +9,7 @@ nicoud.jl,picard.jl,solver.jl}.
 All ARPACK/UMFPACK calls of the reference are replaced by the framework's
 own shift-invert Arnoldi (:mod:`.eigs`) over XLA dense LU solves
 (:mod:`..ops.linsolve`); the Beyn quadrature is expressed as a batch of
-independent shifted solves — the axis that is sharded across TPU chips in
+independent shifted solves — the axis that is sharded across devices in
 :mod:`..parallel.dist_beyn`.
 """
 from __future__ import annotations
@@ -86,21 +86,18 @@ def householder_update(f) -> complex:
 
 def _local_engine(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
                   order, nev, v0, v0_adj, output, update, num_order, scale):
-    # Fused-device fast path (VERDICT r4): for the order-1/nev-1 iteration
-    # (mslp default and householder order 1 — both reduce to the Newton
-    # update dz = -λ/λ′) on the device backend, the whole step runs as ONE
-    # device program instead of O(m) dispatches.  Any inapplicability or
-    # device failure falls through to the generic engine below.
+    # Fused-device path: for the order-1/nev-1 iteration (mslp default and
+    # householder order 1 — both reduce to the Newton update dz = -λ/λ′)
+    # on the device backend, the whole step runs as ONE device program
+    # instead of O(m) dispatches.
     from ..utils.config import solve_backend
     if (nev == 1 and order == 1 and num_order <= 1
             and update in ("householder", "pade")
             and solve_backend().startswith("device")):
         from .fused_local import try_fused_local
-        out = try_fused_local(L, z, maxiter=maxiter, tol=tol, relax=relax,
-                              lam_tol=lam_tol, v0=v0, v0_adj=v0_adj,
-                              output=output, scale=scale)
-        if out is not None:
-            return out
+        return try_fused_local(L, z, maxiter=maxiter, tol=tol, relax=relax,
+                               lam_tol=lam_tol, v0=v0, v0_adj=v0_adj,
+                               output=output, scale=scale)
     z = complex(z) * scale
     tol = tol * abs(scale) if scale != 1 else tol
     saved_active, saved_mode = list(L.active), L.mode

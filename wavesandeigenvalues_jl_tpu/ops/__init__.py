@@ -1,14 +1,9 @@
 from .gmres import block_jacobi, gmres, solve_shifted_batch
 from .linsolve import (DenseLU, Factorization, SingularMatrixError, SparseLU,
                        factorize, factorize_with_fallback)
-from .pallas_thomas import build_slab_thomas
 from .sparse import CSR, StackedOperator, coo_sum_duplicates, csr_to_ell
-from .window_spmm import WindowBsr, WindowSpmm
-from .window_spmm2 import ChunkBsr, ChunkSpmm
 
 __all__ = ["CSR", "StackedOperator", "coo_sum_duplicates", "csr_to_ell",
            "DenseLU", "SparseLU", "Factorization", "SingularMatrixError",
            "factorize", "factorize_with_fallback",
-           "gmres", "block_jacobi", "solve_shifted_batch",
-           "WindowBsr", "WindowSpmm", "ChunkBsr", "ChunkSpmm",
-           "build_slab_thomas"]
+           "gmres", "block_jacobi", "solve_shifted_batch"]

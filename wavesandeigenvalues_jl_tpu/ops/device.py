@@ -1,17 +1,15 @@
-"""Device (XLA/TPU) sparse operator layouts and kernels.
+"""Device (XLA) sparse operator layouts and kernels.
 
 Two complementary layouts:
 
 * **ELL** (padded fixed-width rows): SpMV as gather + row-reduce — one fused
   XLA kernel, bandwidth-bound; the default on every backend.  Complex data
-  is carried as complex64 on TPUs (complex128 does not compile there) and
-  as a float64 (real, imag) pair for the precision-critical refinement path
-  (f64 is available on TPU through emulation).
-* **BSR** (dense [bs×bs] blocks on a block-sparse row structure): SpMV as a
-  batch of MXU matmuls — see :mod:`.pallas_spmv` for the hand-written
-  Pallas kernel with scalar-prefetched block indices.
+  is carried as complex128 (:func:`..utils.config.device_complex_dtype`)
+  or as a float64 (real, imag) pair for the refinement path.
+* **BSR** (dense [bs×bs] blocks on a block-sparse row structure): SpMM as
+  a batch of dense block matmuls (:func:`bsr_spmm_xla`).
 
-The stacked-family evaluation (coefficients × value-stack) is an MXU matmul
+The stacked-family evaluation (coefficients × value-stack) is one matmul
 ``data[B, nnz] = C[B, K] @ V[K, nnz]`` when batched over B evaluation points
 (contour nodes, parameter sweeps).
 """
@@ -66,7 +64,7 @@ def spmv_ell(vals, cols, x):
 
 
 # ---------------------------------------------------------------------------
-# float64-pair complex arithmetic (full double precision on TPU)
+# float64-pair complex arithmetic
 
 
 def cpx_split(z):
@@ -75,8 +73,7 @@ def cpx_split(z):
 
 
 def cpx_spmv_pair(vr, vi, cols, xr, xi):
-    """Complex SpMV on (real, imag) float64 pairs — TPU-safe double
-    precision (c128 does not compile on TPU; f64 does)."""
+    """Complex SpMV on (real, imag) float64 pairs."""
     ar = jnp.sum(vr * xr[cols] - vi * xi[cols], axis=1)
     ai = jnp.sum(vr * xi[cols] + vi * xr[cols], axis=1)
     return ar, ai
@@ -131,7 +128,7 @@ class DeviceStackedOperator:
 
 
 # ---------------------------------------------------------------------------
-# BSR layout for the Pallas MXU kernel
+# BSR layout for the batched-matmul SpMM
 
 
 @dataclass
@@ -194,5 +191,43 @@ class BsrOperator:
         return y.reshape(-1)[:len(x)]
 
 
+def bsr_spmm_xla(bsr: BsrOperator):
+    """BSR SpMM Y = A X as one XLA batched matmul over the gathered RHS
+    block panels, complex64 data as (re, im) float32 planes.  Returns
+    ``apply(X) -> Y`` on host arrays; ``apply.apply_split(Xr, Xi)`` is the
+    jitted plane-level product on [nb, bs, r] panels."""
+    b = bsr.blocks.astype(np.complex64)
+    blocks_re = jnp.asarray(b.real)
+    blocks_im = jnp.asarray(b.imag)
+    cols = jnp.asarray(bsr.block_cols, jnp.int32)
+    bs, n = bsr.bs, bsr.n
+
+    @jax.jit
+    def apply_split(Xr, Xi):
+        hi = jax.lax.Precision.HIGHEST
+        ein = lambda a, b: jnp.einsum("rkij,rkjm->rim", a, b, precision=hi)
+        Xgr = Xr[cols]
+        Xgi = Xi[cols]
+        Yr = ein(blocks_re, Xgr) - ein(blocks_im, Xgi)
+        Yi = ein(blocks_re, Xgi) + ein(blocks_im, Xgr)
+        return Yr, Yi
+
+    def apply(X):
+        X = np.asarray(X)
+        if X.ndim == 1:
+            X = X[:, None]
+        nl, r = X.shape
+        Xp = np.zeros((n, r), np.complex64)
+        Xp[:nl] = X
+        Xb = Xp.reshape(-1, bs, r)
+        Yr, Yi = apply_split(
+            jnp.asarray(np.ascontiguousarray(Xb.real), jnp.float32),
+            jnp.asarray(np.ascontiguousarray(Xb.imag), jnp.float32))
+        return (np.asarray(Yr) + 1j * np.asarray(Yi)).reshape(-1, r)[:nl]
+
+    apply.apply_split = apply_split
+    return apply
+
+
 __all__ = ["EllOperator", "spmv_ell", "DeviceStackedOperator", "BsrOperator",
-           "cpx_split", "cpx_spmv_pair"]
+           "bsr_spmm_xla", "cpx_split", "cpx_spmv_pair"]

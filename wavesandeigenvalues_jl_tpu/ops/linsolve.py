@@ -4,7 +4,7 @@ The reference hands every shifted system to UMFPACK's sparse LU
 (SparseArrays.lu) — e.g. Arnoldi inner solves (Householder.jl:100), Beyn
 quadrature (beyn.jl:62-74), perturbation recurrences (perturbation.jl:385).
 
-Here the workhorse is dense blocked LU executed by XLA (MXU-tiled on TPU),
+Here the workhorse is dense blocked LU executed by XLA on the device,
 which for the moderate FEM dimensions of this domain (10³–10⁵ DOF after
 Bloch reduction / subspace projection) beats scalar sparse factorizations on
 accelerator hardware, and *batches* over contour shifts.  A matrix-free

@@ -1,8 +1,7 @@
 """Mixed-precision iterative refinement.
 
-TPUs compile complex64 natively but not complex128 (utils/config.py), so
-device solves run in single precision.  Classical iterative refinement
-recovers reference (complex128) accuracy: the residual is evaluated in
+Where a device solve runs in single precision (complex64), classical
+iterative refinement recovers reference (complex128) accuracy: the residual is evaluated in
 full precision on host, only the *correction* solve runs at device
 precision.  Converges to f64-level backward error in 2–4 sweeps whenever
 κ(A)·ε_f32 < 1 — the regime the block-Jacobi-preconditioned GMRES and the
@@ -24,7 +23,7 @@ def refine(A: Union[CSR, np.ndarray], b: np.ndarray,
            solve_lowprec: Callable[[np.ndarray], np.ndarray],
            iters: int = 4, tol: float = 1e-13):
     """Iteratively refine ``solve_lowprec`` (any f32/c64 solver: device LU,
-    GMRES, Pallas-backed) to complex128 accuracy.
+    GMRES) to complex128 accuracy.
 
     Returns (x, relres_history)."""
     b = np.asarray(b, dtype=CDTYPE)

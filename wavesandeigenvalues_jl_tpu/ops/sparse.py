@@ -6,10 +6,10 @@ sparse matrices per call (/root/reference/src/NLEVP/LinOpFam.jl:482-529).
 That is hostile to accelerators: k scatter-adds with distinct sparsity
 patterns per evaluation.
 
-The TPU-native layout used here instead *unifies* all terms onto the union
+The layout used here instead *unifies* all terms onto the union
 sparsity pattern once (`StackedOperator`): a single shared CSR structure with
 a value tensor ``V[K, nnz]``.  Evaluating the family for any parameter values
-is then a tiny dense contraction ``data = c @ V`` (an MXU matmul when
+is then a tiny dense contraction ``data = c @ V`` (one matmul when
 batched over many evaluation points) followed by ONE SpMV / one scatter into
 a dense buffer.  Derivatives w.r.t. parameters only change ``c`` — the
 structure is static, so everything jits.

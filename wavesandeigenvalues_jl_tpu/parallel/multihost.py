@@ -1,26 +1,23 @@
-"""Multi-host (pod-slice) initialization and mesh construction.
+"""Multi-process initialization and mesh construction.
 
-The reference is a single-core code (SURVEY §2.9); BASELINE.md asks for
-multi-host nnz/s scaling.  This module makes a real pod run a CONFIG
-change rather than new code:
+The reference is a single-core code (SURVEY §2.9).  This module makes a
+multi-process run a CONFIG change rather than new code:
 
 * :func:`init_multihost` — guarded ``jax.distributed.initialize``; a
-  strict no-op on a single host (no env vars set), env-driven on a pod
-  (each process sets coordinator address / process count / process id, or
-  relies on the TPU runtime's automatic cluster detection).
+  strict no-op when nothing is configured, env-driven otherwise (each
+  process sets coordinator address / process count / process id).
 * :func:`pod_mesh` — one (host × shift × row) device mesh over all
-  globally-visible devices.  The ``host`` axis follows process boundaries
-  so the ``row`` halo ppermutes and intra-solve psums ride ICI, while
-  only the embarrassingly-parallel ``shift`` (quadrature-node) axis and
-  the final moment psum cross DCN — the layout SURVEY §2.9 prescribes.
+  globally-visible devices.  The axes follow the algorithm: ``row``
+  carries the intra-solve halo ppermutes and psums, ``shift`` the
+  embarrassingly-parallel quadrature nodes, and ``host`` (one entry per
+  process) the final moment psum.
 * :func:`pod_spec_check` — validates a (host × shift × row) spec on the
   virtual CPU mesh (used by ``__graft_entry__.dryrun_multichip``), so the
-  sharding program that would run on a pod is compile-checked in CI.
+  sharding program is compile-checked in CI.
 
 Env contract (each process):
   WAE_COORDINATOR=host0:port   WAE_NUM_PROCESSES=N   WAE_PROCESS_ID=k
-or any standard cluster env JAX auto-detects (GKE/TPU pod metadata) with
-just WAE_MULTIHOST=1.
+or WAE_MULTIHOST=1 for a cluster environment JAX detects by itself.
 """
 from __future__ import annotations
 
@@ -69,10 +66,10 @@ def pod_mesh(n_shift: Optional[int] = None, n_row: Optional[int] = None,
     ``n_shift``/``n_row`` split the PER-HOST devices (their product must
     equal the per-host device count; default: all per-host devices on the
     row axis).  The leading ``host`` axis has one entry per process, so
-    collectives over "shift"/"row" never cross DCN while "host"-axis
-    reductions (moment sums) do — matching the Beyn quadrature's
-    communication structure (one psum of the [d,l,2K] moments at the
-    very end, dist_beyn.py)."""
+    collectives over "shift"/"row" stay inside a process while only the
+    "host"-axis reductions (moment sums) cross processes — matching the
+    Beyn quadrature's communication structure (one psum of the [d,l,2K]
+    moments at the very end, dist_beyn.py)."""
     import jax
     from jax.sharding import Mesh
     if devices is not None:
@@ -127,7 +124,7 @@ def pod_spec_check(n_devices: int, n_host: int = 2) -> dict:
              in_specs=(P("row"), P("shift"), P("host")),
              out_specs=(P(), P(), P()))
     def prog(x, s, h):
-        # row: intra-solve dot (ICI), shift: none, host: moment psum (DCN)
+        # row: intra-solve dot, shift: none, host: moment psum
         dot = jax.lax.psum(jnp.sum(x * x), "row")
         sh = jax.lax.psum(jnp.sum(s), "shift")
         hm = jax.lax.psum(jnp.sum(h), "host")

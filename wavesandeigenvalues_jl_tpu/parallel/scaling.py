@@ -9,9 +9,8 @@ workload (weak scaling) and emits one record per device count:
     {"n_devices", "rows", "nnz", "wall_s_per_apply", "nnz_per_s",
      "nnz_per_s_per_device", "efficiency_vs_1"}
 
-On the virtual CPU mesh the numbers validate the *harness* and the trend;
-on a real pod slice the same call (bigger mesh) produces the reportable
-figures — a config change, not new code.
+On the virtual CPU mesh the numbers validate the *harness* only; on real
+devices the same call produces the reportable figures.
 """
 from __future__ import annotations
 
@@ -185,9 +184,8 @@ def gmres_comm_accounting(n: int, P: int, halo: int, l: int, restart: int,
     * CGS2: 2 ``psum`` reductions of the (restart+1)-long projection
       vector + 2 scalar norm psums;
 
-    all with complex128 (16 B) payloads on the virtual mesh / c64 (8 B)
-    on TPU.  Counts are exact properties of the algorithm, not
-    measurements."""
+    with ``itemsize``-byte complex payloads.  Counts are exact properties
+    of the algorithm, not measurements."""
     m = n // P
     hops = 0 if (P == 1 or halo == 0) else 2 * -(-halo // m)
     iters = max_restarts * (restart + 2)
@@ -205,127 +203,24 @@ def gmres_comm_accounting(n: int, P: int, halo: int, l: int, restart: int,
     }
 
 
-#: ICI parameters for the pod-scale prediction (public v5e specs: each
-#: chip has 4 ICI links at ~100 GB/s/dir in a 2-D torus; a conservative
-#: single-link figure is used since the 1-D row mesh rides one link, and
-#: ~1 µs per-hop latency, ~2 µs for a small psum including the log-tree)
-ICI_BW_BYTES_S = 4.5e10
-ICI_LAT_S = 1.0e-6
-
-
-def ici_model_efficiency(t_compute_per_iter_s: float, acc: dict, P: int,
-                         ici_bw: float = ICI_BW_BYTES_S,
-                         ici_lat: float = ICI_LAT_S) -> dict:
-    """Predicted pod-scale weak-scaling efficiency from the per-iteration
-    compute time (measured at P=1, no communication) and the analytic
-    communication counts: eff = T_comp / (T_comp + T_comm).
-
-    The psum tree costs ~2·lat·log2(P); halo ppermutes are
-    nearest-neighbor (latency does not grow with P); halo VOLUME is
-    P-independent (weak scaling) — so the model's efficiency approaches
-    an asymptote set by halo bytes/compute ratio rather than degrading
-    linearly."""
-    import math
-    l = acc["cols"]
-    t_halo = acc["ppermute_hops_per_matvec"] * ici_lat + (
-        l * acc["halo_bytes_per_matvec_per_col"] / ici_bw)
-    n_tree = max(math.log2(max(P, 2)), 1.0)
-    t_psum = acc["psums_per_arnoldi_iter"] * 2 * ici_lat * n_tree + (
-        l * acc["psum_bytes_per_arnoldi_iter"] / ici_bw)
-    t_comm = t_halo + t_psum
-    eff = t_compute_per_iter_s / (t_compute_per_iter_s + t_comm)
-    return {
-        "n_devices": int(P),
-        "t_compute_per_iter_s": float(t_compute_per_iter_s),
-        "t_comm_per_iter_s": float(t_comm),
-        "comm_fraction": float(t_comm / (t_compute_per_iter_s + t_comm)),
-        "modeled_efficiency": float(eff),
-        "ici_bw_bytes_s": float(ici_bw),
-        "ici_lat_s": float(ici_lat),
-    }
-
-
-def dist_gmres_comm_report(rows_per_device: int = 4096, band: int = 31,
-                           l: int = 2, restart: int = 20,
-                           max_restarts: int = 2, bs: int = 32,
-                           device_counts: Sequence[int] = (2, 4, 8, 16,
-                                                           64, 256)) -> dict:
-    """Communication accounting + ICI-model pod prediction for the
-    composed distributed GMRES (VERDICT r3 #4).
-
-    The per-iteration COMPUTE time comes from a 1-device run of the same
-    per-device workload (no collectives compile at P=1); the virtual-mesh
-    multi-device efficiencies measured elsewhere are dominated by CPU
-    oversubscription (2 physical cores) and are NOT predictive — this
-    model is the pod-scale statement BASELINE.md's ≥70% clause needs."""
-    import jax
-    from jax.sharding import Mesh
-
-    from ..ops.sparse import StackedOperator
-    from .dist_solve import make_dist_gmres
-    from .partition import partition_stack
-
-    n = rows_per_device
-    A = _banded_operator(n, band=band)
-    stack = StackedOperator.from_csrs([A])
-    part = partition_stack(stack, 1)
-    mesh = Mesh(np.array(jax.devices()[:1]), ("row",))
-    solve = make_dist_gmres(part, mesh, bs=bs, tol=0.0, restart=restart,
-                            max_restarts=max_restarts)
-    coeffs = np.ones((1, 1), np.complex128)
-    rng = np.random.default_rng(2)
-    B = (rng.standard_normal((1, l, n))
-         + 1j * rng.standard_normal((1, l, n)))
-    solve(coeffs, B)                        # compile + warm
-    best = np.inf
-    for _ in range(3):
-        t0 = time.perf_counter()
-        solve(coeffs, B)
-        best = min(best, time.perf_counter() - t0)
-    iters = max_restarts * (restart + 2)
-    t_iter = best / iters
-
-    acc = gmres_comm_accounting(n, 1, band // 2, l, restart, max_restarts)
-    # weak scaling: per-device workload (and hence t_iter) is fixed;
-    # halo/psum counts follow the accounting above
-    acc_p = dict(acc)
-    acc_p["ppermute_hops_per_matvec"] = 2   # any P ≥ 2, halo < m
-    model = [ici_model_efficiency(t_iter, acc_p, P)
-             for P in device_counts]
-    return {
-        "per_device_rows": int(n),
-        "t_compute_per_iter_s": float(t_iter),
-        "accounting": acc,
-        "modeled": model,
-        "note": ("compute time measured at P=1 on this host; virtual-mesh"
-                 " multi-device timings are CPU-oversubscription-bound "
-                 "and not predictive of ICI"),
-    }
-
-
 def dist_gmres_strong_report(A: CSR, device_counts: Sequence[int]
                              = (1, 2, 4, 8, 16, 32),
                              l: int = 2, restart: int = 20,
                              max_restarts: int = 2, bs: int = 32) -> dict:
-    """STRONG-scaling model for the row-sharded GMRES on a FIXED operator
-    (VERDICT r4 #6): the 57k-DOF problem split P ways — per-device
-    compute shrinks while the psum tree and the (volume-fixed) halo stay,
-    so the halo/compute ratio GROWS with P, unlike the weak-scaling setup
-    where ~99% efficiency is near-tautological.
+    """Strong-scaling COMPUTE measurement for the row-sharded GMRES on a
+    FIXED operator: the problem split P ways, per-device compute shrinks
+    while the per-iteration overhead floor stays.
 
-    The compute side is MEASURED, not assumed: for every P the per-device
-    workload is emulated by the leading ⌈n/P⌉-row principal submatrix of
-    the (bandwidth-reduced) operator — the same rows-per-device block the
-    real partition would own — solved at P=1 on the CURRENT backend (run
-    this on the TPU for device-anchored numbers; bench.py does, health-
-    stamped).  Communication uses the exact per-iteration accounting
-    (:func:`gmres_comm_accounting`) with the operator's true halo width.
+    For every P the per-device workload is emulated by the leading
+    ⌈n/P⌉-row principal submatrix of the (bandwidth-reduced) operator —
+    the same rows-per-device block the real partition would own — solved
+    at P=1 on the CURRENT backend:
 
-        eff_strong(P) = (t_iter(n)/P) / (t_iter(n/P) + t_comm(P))
+        compute_efficiency(P) = (t_iter(n)/P) / t_iter(n/P)
 
-    The measured t_iter(n/P) keeps every real per-iteration overhead the
-    ideal-scaling numerator ignores — that overhead floor, not the ICI,
-    is what limits strong scaling on small problems."""
+    Communication is not modelled: collective time comes from a trace of
+    a real multi-device run.  The exact per-iteration communication
+    counts are in ``gmres_comm_accounting`` per record."""
     import jax
     import scipy.sparse as sp
     from jax.sharding import Mesh
@@ -365,30 +260,21 @@ def dist_gmres_strong_report(A: CSR, device_counts: Sequence[int]
     t1 = t_iter[min(device_counts)] * min(device_counts)  # t_iter at P=1
     records = []
     for P in device_counts:
-        acc = gmres_comm_accounting(n, P, halo, l, restart, max_restarts)
-        mrec = ici_model_efficiency(t_iter[P], acc, P)
-        ideal = t1 / P
-        eff = ideal / (t_iter[P] + mrec["t_comm_per_iter_s"])
         records.append({
             "n_devices": int(P),
             "rows_per_device": int(-(-n // P)),
             "t_iter_measured_s": float(t_iter[P]),
-            "t_comm_per_iter_s": mrec["t_comm_per_iter_s"],
-            "comm_fraction": float(
-                mrec["t_comm_per_iter_s"]
-                / (t_iter[P] + mrec["t_comm_per_iter_s"])),
-            "strong_efficiency": float(min(eff, 1.0)),
+            "compute_efficiency": float(min((t1 / P) / t_iter[P], 1.0)),
+            "gmres_comm_accounting": gmres_comm_accounting(
+                n, P, halo, l, restart, max_restarts),
         })
     return {
         "n_rows": int(n), "nnz": int(A.nnz), "halo_rows": halo,
         "restart": restart, "l": l,
         "backend": jax.devices()[0].platform,
         "records": records,
-        "note": ("t_iter measured on this backend per per-device size; "
-                 "comm from exact per-iteration accounting + ICI model"),
     }
 
 
 __all__ = ["spmv_scaling_report", "dist_gmres_scaling_report",
-           "gmres_comm_accounting", "ici_model_efficiency",
-           "dist_gmres_comm_report", "dist_gmres_strong_report"]
+           "gmres_comm_accounting", "dist_gmres_strong_report"]

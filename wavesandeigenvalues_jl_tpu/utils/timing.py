@@ -1,7 +1,7 @@
 """Structured per-phase timing and device-trace hooks.
 
 The reference's only observability is ProgressMeter bars and wall-clock
-prints inside the perturbation module (SURVEY.md §5).  The TPU framework
+prints inside the perturbation module (SURVEY.md §5).  This framework
 replaces that with:
 
 * ``phase("name")`` — a context manager that accumulates wall time per
